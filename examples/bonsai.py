@@ -6,26 +6,15 @@ from common import finish, make_parser, maybe_cpu, orbit_events
 
 def main():
     parser = make_parser("bonsai")
-    parser.add_argument(
-        "--fast", action="store_true",
-        help="shear-warp MXU renderer (approximate; see PARITY_REPORT.md)",
-    )
     args = parser.parse_args()
     maybe_cpu(args)
-    from vokselis_tpu.engine.loop import run
-    from vokselis_tpu.models.bonsai import BonsaiDemo
-
-    demo_cls = BonsaiDemo
-    if args.fast:
-        class demo_cls(BonsaiDemo):  # noqa: N801 - init-arg shim for run()
-            @classmethod
-            def init(cls, ctx):
-                return BonsaiDemo.init(ctx, renderer="fast")
+    from vokselis.engine.loop import run
+    from vokselis.models.bonsai import BonsaiDemo
 
     camera = BonsaiDemo.default_camera(args.width / args.height)
     events = orbit_events(args.frames, args.width, args.height) if args.orbit else None
     ctx = run(
-        demo_cls,
+        BonsaiDemo,
         width=args.width,
         height=args.height,
         camera=camera,

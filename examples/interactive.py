@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Live terminal viewer — the winit-window analog for a TPU host.
+"""Live terminal viewer — the winit-window analog for a headless host.
 
 The reference opens a winit window and runs an interactive event loop
-(src/lib.rs:75-208). A TPU host has no display, so this paints every
+(src/lib.rs:75-208). A headless GPU host has no display, so this paints every
 frame into the terminal as 24-bit ANSI half-blocks and maps keys to the
 reference's controls (src/lib.rs:80-177):
 
@@ -81,7 +81,7 @@ def live_events(ctx, fd, preview_cols=100):
     ``None``; previews the previous frame before reading keys."""
     import numpy as np
 
-    from vokselis_tpu.ops.present import to_uint8
+    from vokselis.ops.present import to_uint8
 
     x, y = ctx.width / 2.0, ctx.height / 2.0
     step = 24.0
@@ -123,28 +123,19 @@ def main():
     parser = make_parser("interactive")
     parser.add_argument("--demo", default="bonsai",
                         choices=("bonsai", "trig", "xor"))
-    parser.add_argument("--renderer", default="exact",
-                        choices=("exact", "fast", "hybrid"),
-                        help="bonsai renderer variant")
     parser.add_argument("--preview-cols", type=int, default=100)
     args = parser.parse_args()
     maybe_cpu(args)
 
-    from vokselis_tpu.engine.context import Context
-    from vokselis_tpu.engine.loop import run
+    from vokselis.engine.context import Context
+    from vokselis.engine.loop import run
 
     if args.demo == "bonsai":
-        from vokselis_tpu.models.bonsai import BonsaiDemo as base
-        renderer = args.renderer
-
-        class demo_cls(base):  # noqa: N801 - init-arg shim for run()
-            @classmethod
-            def init(cls, ctx):
-                return base.init(ctx, renderer=renderer)
+        from vokselis.models.bonsai import BonsaiDemo as demo_cls
     elif args.demo == "trig":
-        from vokselis_tpu.models.trig import TrigDemo as demo_cls
+        from vokselis.models.trig import TrigDemo as demo_cls
     else:
-        from vokselis_tpu.models.xor import XorDemo as demo_cls
+        from vokselis.models.xor import XorDemo as demo_cls
 
     camera = demo_cls.default_camera(args.width / args.height)
     ctx = Context(width=args.width, height=args.height, camera=camera,

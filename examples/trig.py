@@ -7,8 +7,8 @@ from common import finish, make_parser, maybe_cpu, orbit_events
 def main():
     args = make_parser("trig").parse_args()
     maybe_cpu(args)
-    from vokselis_tpu.engine.loop import run
-    from vokselis_tpu.models.trig import TrigDemo
+    from vokselis.engine.loop import run
+    from vokselis.models.trig import TrigDemo
 
     events = orbit_events(args.frames, args.width, args.height) if args.orbit else None
     ctx = run(

@@ -1,25 +1,19 @@
 #!/usr/bin/env python
-"""Xor demo (examples/xor/): compute raymarch of the procedural volume.
-
-Press semantics are scripted: pass --tile to start in Tile mode (F1 toggle).
-"""
+"""Xor demo (examples/xor/): compute raymarch of the procedural volume."""
 
 from common import finish, make_parser, maybe_cpu, orbit_events
 
 
 def main():
     parser = make_parser("xor")
-    parser.add_argument("--tile", action="store_true", help="start in Tile mode")
     args = parser.parse_args()
     maybe_cpu(args)
-    from vokselis_tpu.engine.loop import run
-    from vokselis_tpu.models.xor import XorDemo
+    from vokselis.engine.loop import run
+    from vokselis.models.xor import XorDemo
 
     camera = XorDemo.default_camera(args.width / args.height)
 
     def events():
-        if args.tile:
-            yield {"type": "key", "key": "f1", "pressed": True}
         if args.orbit:
             yield from orbit_events(args.frames, args.width, args.height)
 

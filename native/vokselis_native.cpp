@@ -1,4 +1,4 @@
-// vokselis_tpu native IO runtime.
+// vokselis native IO runtime.
 //
 // C++ rebuild of the reference's performance-sensitive host components
 // (which are Rust there):

@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vokselis_tpu.core import geometry
-from vokselis_tpu.core.camera import (
+from vokselis.core import geometry
+from vokselis.core.camera import (
     Camera,
     look_at_rh,
     perspective_rh,
@@ -16,7 +16,7 @@ from vokselis_tpu.core.camera import (
     ZNEAR,
     ZFAR,
 )
-from vokselis_tpu.core.colors import (
+from vokselis.core.colors import (
     aces_film,
     linear_to_srgb,
     linear_to_srgb_present,
@@ -196,7 +196,7 @@ class TestPresentUpsamplers:
         return top * (1 - fy) + bot * fy
 
     def test_partition_of_unity(self):
-        from vokselis_tpu.ops.present import present
+        from vokselis.ops.present import present
 
         const = jnp.full((12, 20, 4), 0.37, jnp.float32)
         for filt in ("linear", "quadratic", "bicubic"):
@@ -207,7 +207,7 @@ class TestPresentUpsamplers:
     def test_quadratic_matches_wgsl_transliteration(self):
         """Non-square source pins the shader's textureDimensions(tex).x
         texel-size quirk (present.wgsl:42 uses .x for BOTH axes)."""
-        from vokselis_tpu.ops.present import present
+        from vokselis.ops.present import present
 
         rng = np.random.default_rng(0)
         img = rng.random((8, 16, 4)).astype(np.float32)
@@ -236,7 +236,7 @@ class TestPresentUpsamplers:
         assert np.abs(out - want).max() < 1e-5
 
     def test_bicubic_matches_wgsl_transliteration(self):
-        from vokselis_tpu.ops.present import present
+        from vokselis.ops.present import present
 
         rng = np.random.default_rng(1)
         img = rng.random((9, 14, 4)).astype(np.float32)
@@ -272,62 +272,3 @@ class TestPresentUpsamplers:
                                                   iy + h1(fy) - 0.5)
                 )
         assert np.abs(out - want).max() < 1e-5
-
-
-def test_fast_transfer_poly_parity():
-    """The composite's polynomial transfer+palette+pow mirror
-    (core.colors.bonsai_transfer_pow_fast_soa) vs the exact transcendental
-    forms over the full (samp, irho) domain — guards the committed
-    Chebyshev coefficients (tools/fit_transfer_poly.py)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from vokselis_tpu.core.colors import (
-        bonsai_transfer_pow_fast_soa,
-        bonsai_transfer_soa,
-    )
-
-    samp = jnp.asarray(np.linspace(0.0, 1.0, 4001, dtype=np.float32)[None, :])
-    irho = jnp.asarray(np.linspace(1.0, 3.0, 41, dtype=np.float32)[:, None])
-    a_f, r_f, g_f, b_f = bonsai_transfer_pow_fast_soa(
-        jnp.broadcast_to(samp, (41, 4001)), jnp.broadcast_to(irho, (41, 4001))
-    )
-    tv, r_e, g_e, b_e = bonsai_transfer_soa(samp)
-    a_e = 1.0 - jnp.exp(irho * jnp.log1p(-tv))
-    assert np.abs(np.asarray(a_f) - np.asarray(a_e)).max() < 2e-6
-    for got, want in ((r_f, r_e), (g_f, g_e), (b_f, b_e)):
-        assert np.abs(np.asarray(got) - np.asarray(want)).max() < 2e-6
-    # empty samples must stay EXACTLY transparent (a leak accumulates
-    # over the ~100 empty slabs a typical ray crosses)
-    a0 = bonsai_transfer_pow_fast_soa(jnp.zeros((8, 128)),
-                                      jnp.full((8, 128), 1.3))[0]
-    assert float(np.abs(np.asarray(a0)).max()) == 0.0
-
-
-def test_lowdeg_transfer_poly_parity():
-    """The round-5 composite-grade transfer (low-degree palette +
-    hardware-exp/log alpha, core.colors.bonsai_transfer_pow_lowdeg_soa)
-    vs the exact transcendental forms: alpha is EXACT (same exp/log),
-    palette channels <= 2e-5 — two decades under the fast path's 1e-3
-    contract, and palette error does not accumulate along a ray (convex
-    combination). Guards the committed low-degree coefficients."""
-    import numpy as np
-    import jax.numpy as jnp
-    from vokselis_tpu.core.colors import (
-        bonsai_transfer_pow_lowdeg_soa,
-        bonsai_transfer_soa,
-    )
-
-    samp = jnp.asarray(np.linspace(0.0, 1.0, 4001, dtype=np.float32)[None, :])
-    # no irho domain cap in the lowdeg form — probe beyond the old <=3
-    irho = jnp.asarray(np.linspace(1.0, 5.0, 41, dtype=np.float32)[:, None])
-    a_f, r_f, g_f, b_f = bonsai_transfer_pow_lowdeg_soa(
-        jnp.broadcast_to(samp, (41, 4001)), jnp.broadcast_to(irho, (41, 4001))
-    )
-    tv, r_e, g_e, b_e = bonsai_transfer_soa(samp)
-    a_e = 1.0 - jnp.exp(irho * jnp.log1p(-tv))
-    assert np.abs(np.asarray(a_f) - np.asarray(a_e)).max() < 1e-6
-    for got, want in ((r_f, r_e), (g_f, g_e), (b_f, b_e)):
-        assert np.abs(np.asarray(got) - np.asarray(want)).max() < 2e-5
-    a0 = bonsai_transfer_pow_lowdeg_soa(jnp.zeros((8, 128)),
-                                        jnp.full((8, 128), 1.3))[0]
-    assert float(np.abs(np.asarray(a0)).max()) == 0.0

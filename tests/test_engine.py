@@ -4,13 +4,13 @@ compiler diagnostics, reload registry, input state, demos."""
 import numpy as np
 import jax.numpy as jnp
 
-from vokselis_tpu.core.camera import Camera
-from vokselis_tpu.engine.compiler import KernelCompiler
-from vokselis_tpu.engine.context import Context, HdrBackBuffer
-from vokselis_tpu.engine.input import Input
-from vokselis_tpu.engine.loop import run
-from vokselis_tpu.engine.profiler import FrameCounter, PassTimer
-from vokselis_tpu.models.trig import TrigDemo
+from vokselis.core.camera import Camera
+from vokselis.engine.compiler import KernelCompiler
+from vokselis.engine.context import Context, HdrBackBuffer
+from vokselis.engine.input import Input
+from vokselis.engine.loop import run
+from vokselis.engine.profiler import FrameCounter, PassTimer
+from vokselis.models.trig import TrigDemo
 
 
 class TestContext:
@@ -118,7 +118,7 @@ class TestCompiler:
 
 class TestInput:
     def test_position_nudging(self):
-        from vokselis_tpu.core.uniforms import GlobalUniform
+        from vokselis.core.uniforms import GlobalUniform
 
         inp = Input()
         assert inp.update_key("up", True)
@@ -158,7 +158,7 @@ class TestReload:
         import sys
         import time
 
-        from vokselis_tpu.engine.reload import FnPipeline, Watcher
+        from vokselis.engine.reload import FnPipeline, Watcher
 
         mod_path = tmp_path / "hotmod.py"
         mod_path.write_text("def kernel():\n    return 1\n")

@@ -1,68 +1,31 @@
+"""The config-5 volume generator against a pointwise field evaluation."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+
+from vokselis.volume import fields
 
 
-def test_noise_volume_grad_bitwise_matches_separate_evals():
-    """The hash-shared fused eval (fields_soa.noise_volume_grad) must be
-    BIT-IDENTICAL to noise_volume + gradient: the lattice arithmetic is
-    exact integer math in f32, so corner sharing changes nothing."""
-    import numpy as np
-    import jax.numpy as jnp
-    from vokselis_tpu.volume import fields_soa
-
-    rng = np.random.default_rng(11)
-    cx, cy, cz = (jnp.asarray(rng.uniform(-1, 1, 4096), jnp.float32)
-                  for _ in range(3))
-    for sin_t in (0.0, 0.71):
-        v0, a0 = fields_soa.noise_volume(cx, cy, cz, sin_t)
-        g = fields_soa.gradient(cx, cy, cz, sin_t)
-        fv, fa, gx, gy, gz = fields_soa.noise_volume_grad(cx, cy, cz, sin_t)
-        np.testing.assert_array_equal(np.asarray(fv), np.asarray(v0))
-        np.testing.assert_array_equal(np.asarray(fa), np.asarray(a0))
-        np.testing.assert_array_equal(np.asarray(gx), np.asarray(g[0]))
-        np.testing.assert_array_equal(np.asarray(gy), np.asarray(g[1]))
-        np.testing.assert_array_equal(np.asarray(gz), np.asarray(g[2]))
+@pytest.mark.parametrize("dims,time", [(8, 0.0), (16, 1.25), (12, 3.0)])
+def test_generate_density_u8_matches_field(dims, time):
+    """Every voxel is the radially masked fbm alpha of ``noise_volume`` at
+    the voxel's coordinate, quantized to uint8."""
+    got = np.asarray(fields.generate_density_u8(time, dims))
+    assert got.shape == (dims,) * 3 and got.dtype == np.uint8
+    half = dims / 2.0
+    z, y, x = np.meshgrid(*([np.arange(dims, dtype=np.float32)] * 3),
+                          indexing="ij")
+    coord = np.stack([(x - half) / dims, (y - half) / dims,
+                      (z - half) / dims], axis=-1)
+    alpha = np.asarray(fields.noise_volume(jnp.asarray(coord), time))[..., 3]
+    want = np.clip(alpha * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    assert (np.abs(got.astype(int) - want.astype(int)) <= 1).all()
+    assert (got == want).mean() > 0.99
 
 
-def test_noise_volume_grad_analytic_value_bitwise_normal_close():
-    """The analytic-gradient eval (config 2's default normal source) must
-    keep val/alpha BIT-IDENTICAL to the reference chain (same 24 corner
-    hashes) while its normal stays directionally close to the eps=1e-4
-    one-sided difference: the probe set's mean angle is ~0.65 deg
-    (tools/xor_grad_probe.py measures the frame-level delta: worst
-    per-frame mean 3.3e-4 vs the oracle, far under the 1e-3 contract)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from vokselis_tpu.volume import fields_soa
-
-    rng = np.random.default_rng(7)
-    g = rng.integers(0, 256, size=(3, 8192))
-    cx, cy, cz = (jnp.asarray((v - 128.0) / 256.0, jnp.float32) for v in g)
-    for sin_t in (0.0, 0.71):
-        fv, fa, gx, gy, gz = fields_soa.noise_volume_grad(cx, cy, cz, sin_t)
-        av, aa, ax, ay, az = fields_soa.noise_volume_grad_analytic(
-            cx, cy, cz, sin_t)
-        np.testing.assert_array_equal(np.asarray(av), np.asarray(fv))
-        np.testing.assert_array_equal(np.asarray(aa), np.asarray(fa))
-        dot = np.asarray(gx * ax + gy * ay + gz * az)
-        r = np.sqrt((np.asarray(cx) ** 2 + np.asarray(cy) ** 2
-                     + np.asarray(cz) ** 2))
-        m = (r < 0.5) & (np.asarray(fa) > 1e-3)
-        ang = np.degrees(np.arccos(np.clip(dot[m], -1.0, 1.0)))
-        assert ang.mean() < 1.5, ang.mean()
-        assert np.percentile(ang, 99) < 10.0
-
-
-def test_march_field_analytic_grad_frame_close_to_fd():
-    """Frame-level gate for the analytic-gradient default: the rendered
-    xor frame must sit well inside the 1e-3 error budget vs the
-    oracle-exact fd render at the same pose/time."""
-    import numpy as np
-    from vokselis_tpu.core.camera import Camera
-    from vokselis_tpu.ops.pallas.march_field import render_field_pallas
-
-    u = Camera.xor(1.0).uniform()
-    kw = dict(width=32, height=32, tile_h=16, tile_w=128, max_steps=64,
-              interpret=True)
-    fd = np.asarray(render_field_pallas(u, 0.7, grad="fd", **kw))
-    an = np.asarray(render_field_pallas(u, 0.7, grad="analytic", **kw))
-    d = np.abs(an[..., :3] - fd[..., :3])
-    assert d.mean() < 3e-4, d.mean()
+def test_generate_density_u8_varies_in_time():
+    a = np.asarray(fields.generate_density_u8(0.0, 16))
+    b = np.asarray(fields.generate_density_u8(1.5, 16))
+    assert (a != b).any()
+    assert 0.05 < (a > 0).mean() < 0.95

@@ -1,79 +1,44 @@
 """Golden-image regression tests (SURVEY.md §4 point 3).
 
-Goldens live in tests/goldens/ and are produced by tools/make_goldens.py
-from the jnp oracle renderers at fixed camera/time. Tolerances are in uint8
-levels: XLA fusion drift across jax versions is ~1 level on a small pixel
-fraction; a real regression shifts whole regions.
+The scenes, the goldens' location and the tolerance live in
+golden_scenes.py next to this file.
 """
 
 import os
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
-from vokselis_tpu.core.camera import Camera
-from vokselis_tpu.media.png import read_png
-from vokselis_tpu.ops.present import present, to_uint8
-
-GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
-W, H = 160, 90
+import golden_scenes as goldens
 
 
-def _check(name, img_u8):
-    path = os.path.join(GOLDENS, name)
-    if not os.path.isfile(path):
+def _check(name):
+    if not os.path.isfile(os.path.join(goldens.GOLDEN_DIR, name)):
         pytest.skip(f"golden {name} missing — run tools/make_goldens.py")
-    gold = read_png(path)
-    cur = np.asarray(img_u8, np.int32)
-    err = np.abs(cur - gold.astype(np.int32))
-    assert err.mean() < 1.0, f"{name}: mean err {err.mean()}"
-    assert (err > 8).mean() < 0.01, f"{name}: {(err > 8).mean():.3%} px off by >8"
+    goldens.check(name, goldens.render(name))
 
 
 def test_bonsai_golden():
-    from vokselis_tpu.ops.reference import render_bonsai
-    from vokselis_tpu.volume.io import get_bonsai
-
-    cam = Camera(zoom=1.0, pitch=0.5, yaw=1.0, target=(0.5, 0.5, 0.5), aspect=W / H)
-    hdr = render_bonsai(jnp.asarray(get_bonsai()), cam.uniform(), width=W, height=H)
-    _check("bonsai.png", to_uint8(present(hdr)))
+    _check("bonsai.png")
 
 
 def test_xor_golden():
-    from vokselis_tpu.ops.reference import render_compute_inline
-
-    cam = Camera(zoom=3.0, pitch=-0.5, yaw=1.0, target=(0.0, 0.0, 0.0), aspect=W / H)
-    hdr = render_compute_inline(cam.uniform(), time=0.0, width=W, height=H)
-    _check("xor.png", to_uint8(present(hdr)))
+    _check("xor.png")
 
 
 def test_trig_field_golden():
-    from vokselis_tpu.ops.reference import render_field
-
-    cam = Camera(zoom=3.0, pitch=-0.5, yaw=1.0, target=(0.0, 0.0, 0.0), aspect=W / H)
-    hdr = render_field(cam.uniform(), time=0.0, width=W, height=H)
-    _check("trig_field.png", to_uint8(present(hdr)))
+    _check("trig_field.png")
 
 
 def test_trig_triangle_golden():
-    from vokselis_tpu.ops.raster import rasterize_triangle
-
-    cam = Camera.default(aspect=W / H)
-    img = rasterize_triangle(
-        cam.uniform().proj_view,
-        jnp.asarray([-0.5, -0.5, 0.0]), jnp.asarray([0.5, -0.5, 0.0]),
-        jnp.asarray([0.0, 0.5, 0.0]),
-        jnp.asarray([0.25, 0.0, 1.0, 1.0]), W, H,
-    )
-    _check("trig.png", to_uint8(present(img)))
+    _check("trig.png")
 
 
 def test_state_roundtrip_reproduces_frame(tmp_path):
     """Checkpoint/resume: a restored state renders the identical frame."""
-    from vokselis_tpu.engine.context import Context
-    from vokselis_tpu.engine.state import load_state, save_state
-    from vokselis_tpu.models.trig import TrigDemo
+    from vokselis.engine.context import Context
+    from vokselis.engine.state import load_state, save_state
+    from vokselis.models.trig import TrigDemo
 
     ctx = Context(width=64, height=36, backbuffer_resolution=(64, 36))
     ctx.camera.add_yaw(0.3)

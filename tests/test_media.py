@@ -5,8 +5,8 @@ import time
 
 import numpy as np
 
-from vokselis_tpu.media.png import encode_png, read_png, write_png
-from vokselis_tpu.utils.misc import ContinuousDict, ImageDimensions
+from vokselis.media.png import encode_png, read_png, write_png
+from vokselis.utils.misc import ContinuousDict, ImageDimensions
 
 
 class TestPng:
@@ -43,7 +43,7 @@ class TestPng:
 class TestRecorder:
     def test_screenshot_worker(self, tmp_path, monkeypatch):
         monkeypatch.chdir(tmp_path)
-        from vokselis_tpu.media.recorder import Recorder
+        from vokselis.media.recorder import Recorder
 
         rec = Recorder()
         frame = np.random.default_rng(0).integers(0, 255, (16, 16, 4), dtype=np.uint8)
@@ -57,7 +57,7 @@ class TestRecorder:
     def test_video_degrades_without_ffmpeg(self, tmp_path, monkeypatch):
         monkeypatch.chdir(tmp_path)
         monkeypatch.setenv("PATH", "")  # hide ffmpeg if any
-        from vokselis_tpu.media.recorder import Recorder
+        from vokselis.media.recorder import Recorder
 
         rec = Recorder()
         assert not rec.ffmpeg_installed

@@ -26,8 +26,8 @@ def test_hot_reload_swaps_xor_field_end_to_end(tmp_path):
 
     import numpy as np
 
-    from vokselis_tpu.engine.context import Context
-    from vokselis_tpu.models.xor import XorDemo
+    from vokselis.engine.context import Context
+    from vokselis.models.xor import XorDemo
 
     path = tmp_path / "hotfield.py"
     path.write_text(FIELD_V1)
@@ -37,7 +37,7 @@ def test_hot_reload_swaps_xor_field_end_to_end(tmp_path):
     sys.modules["hotfield"] = mod
 
     ctx = Context(width=16, height=16, backbuffer_resolution=(16, 16))
-    demo = XorDemo.init(ctx, use_pallas=False)
+    demo = XorDemo.init(ctx)
     # swap the demo onto the editable field module (the oracle path takes
     # the field callable as a static jit arg)
     demo.pipeline.field_fn = mod.noise_volume

@@ -5,16 +5,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vokselis_tpu.core.camera import Camera
-from vokselis_tpu.core.colors import linear_to_srgb, smoothstep, vertigo
-from vokselis_tpu.ops.reference import (
+from vokselis.core.camera import Camera
+from vokselis.core.colors import linear_to_srgb, smoothstep, vertigo
+from vokselis.ops.reference import (
     render_bonsai,
     render_compute_inline,
     render_compute_tex,
     render_field,
 )
-from vokselis_tpu.volume import fields
-from vokselis_tpu.volume.io import get_bonsai
+from vokselis.volume import fields
+from vokselis.volume.io import get_bonsai
 
 
 class TestBonsai:
@@ -69,7 +69,7 @@ class TestBonsai:
 class TestComputePath:
     def test_inline_matches_texture_variant(self):
         """The inline-field evaluation must place samples exactly where the
-        precomputed-texture variant does (TPU-native gather-free form)."""
+        precomputed-texture variant does (the gather-free form)."""
         dims = 32
         dens, nrm = fields.generate_xor_volumes(dims, time=0.0)
         u = Camera.xor(1.0).uniform()

@@ -34,11 +34,11 @@ def fake_ffmpeg(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("backend", ["python", "native"])
 def test_video_frames_reach_ffmpeg(fake_ffmpeg, backend):
-    from vokselis_tpu.media.recorder import Recorder
-    from vokselis_tpu.utils.misc import ImageDimensions
+    from vokselis.media.recorder import Recorder
+    from vokselis.utils.misc import ImageDimensions
 
     if backend == "native":
-        from vokselis_tpu.native import get_lib
+        from vokselis.native import get_lib
 
         if get_lib() is None:
             pytest.skip("native library unavailable")
@@ -65,9 +65,9 @@ def test_video_frames_reach_ffmpeg(fake_ffmpeg, backend):
 
 def test_resize_mid_recording_finishes_video(fake_ffmpeg):
     """lib.rs:109-113: a resize stops an active recording."""
-    from vokselis_tpu.engine.context import Context
-    from vokselis_tpu.engine.loop import run
-    from vokselis_tpu.models.trig import TrigDemo
+    from vokselis.engine.context import Context
+    from vokselis.engine.loop import run
+    from vokselis.models.trig import TrigDemo
 
     events = [
         {"type": "key", "key": "f12", "pressed": True},

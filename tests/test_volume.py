@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vokselis_tpu.volume import fields
-from vokselis_tpu.volume.io import get_bonsai, load_raw, synthetic_bonsai
-from vokselis_tpu.volume.sample import sample_nearest, sample_trilinear_r8
+from vokselis.volume import fields
+from vokselis.volume.io import get_bonsai, load_raw, synthetic_bonsai
+from vokselis.volume.sample import sample_nearest, sample_trilinear_r8
 
 
 class TestIO:

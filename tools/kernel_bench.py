@@ -1,5 +1,6 @@
-"""Micro-bench: ONLY the flagship exact-kernel config (bonsai 256^3 @1024^2)
-— for kernel-optimization A/B runs without bench.py's fast-mode configs.
+#!/usr/bin/env python
+"""Micro-bench: ONLY the flagship config (bonsai 256^3 @1024^2) on one GPU —
+for kernel A/B runs without the rest of bench.py's configs.
 
     python tools/kernel_bench.py [width height]
 """
@@ -14,11 +15,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     from bench import bench_bonsai
+    from vokselis.ops import backend
+    from vokselis.utils.chip import card_line
 
+    backend.require_gpu()
     width = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     height = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
-    mrays, sec = bench_bonsai(width=width, height=height)
-    print(f"{width}x{height}: {sec * 1000:.2f} ms/frame = {mrays:.1f} Mrays/s")
+    bench_bonsai(card_line(), name=f"bonsai_{width}x{height}", width=width,
+                 height=height)
 
 
 if __name__ == "__main__":

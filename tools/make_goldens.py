@@ -1,73 +1,27 @@
 #!/usr/bin/env python
 """Regenerate the golden images for tests/test_golden.py.
 
-Goldens are produced by the jnp oracle renderers on CPU at fixed camera/time
-(the reference's de-facto goldens are trig.png/bonsai.png/volume.png in its
-repo root, README.md:9,15,21 — ours are small deterministic equivalents).
+Renders the scenes of ``tests/golden_scenes.py`` on the CPU (the jnp
+oracles) at their fixed camera/time and writes them to tests/goldens/.
 Run from the repo root: python tools/make_goldens.py
 """
 
 import os
 import sys
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+os.environ["JAX_PLATFORMS"] = "cpu"
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
-import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
-
-from vokselis_tpu.core.camera import Camera  # noqa: E402
-from vokselis_tpu.media.png import write_png  # noqa: E402
-from vokselis_tpu.ops.present import present, to_uint8  # noqa: E402
-from vokselis_tpu.ops.raster import rasterize_triangle  # noqa: E402
-from vokselis_tpu.ops.reference import (  # noqa: E402
-    render_bonsai,
-    render_compute_inline,
-    render_field,
-)
-from vokselis_tpu.volume.io import get_bonsai  # noqa: E402
-
-OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "goldens")
-
-# fixed scene parameters — changing ANY of these invalidates the goldens
-BONSAI_CAM = dict(zoom=1.0, pitch=0.5, yaw=1.0, target=(0.5, 0.5, 0.5))
-XOR_CAM = dict(zoom=3.0, pitch=-0.5, yaw=1.0, target=(0.0, 0.0, 0.0))
-TIME = 0.0
-SIZE = (160, 90)  # (width, height)
+from vokselis.media.png import write_png  # noqa: E402
+import golden_scenes as goldens  # noqa: E402
 
 
 def main():
-    os.makedirs(OUT, exist_ok=True)
-    w, h = SIZE
-
-    vol = jnp.asarray(get_bonsai())
-    cam = Camera(aspect=w / h, **BONSAI_CAM)
-    hdr = render_bonsai(vol, cam.uniform(), width=w, height=h)
-    write_png(os.path.join(OUT, "bonsai.png"),
-              np.asarray(to_uint8(present(hdr))))
-
-    camx = Camera(aspect=w / h, **XOR_CAM)
-    hdr = render_compute_inline(camx.uniform(), time=TIME, width=w, height=h)
-    write_png(os.path.join(OUT, "xor.png"), np.asarray(to_uint8(present(hdr))))
-
-    hdr = render_field(camx.uniform(), time=TIME, width=w, height=h)
-    write_png(os.path.join(OUT, "trig_field.png"),
-              np.asarray(to_uint8(present(hdr))))
-
-    # the literal trig demo triangle at time 0.25
-    cam0 = Camera.default(aspect=w / h)
-    color = jnp.asarray([0.25, 0.0, 1.0, 1.0], jnp.float32)
-    img = rasterize_triangle(
-        cam0.uniform().proj_view,
-        jnp.asarray([-0.5, -0.5, 0.0]), jnp.asarray([0.5, -0.5, 0.0]),
-        jnp.asarray([0.0, 0.5, 0.0]), color, w, h,
-    )
-    write_png(os.path.join(OUT, "trig.png"), np.asarray(to_uint8(present(img))))
-    print(f"goldens written to {OUT}")
+    os.makedirs(goldens.GOLDEN_DIR, exist_ok=True)
+    for name in goldens.SCENES:
+        write_png(os.path.join(goldens.GOLDEN_DIR, name), goldens.render(name))
+    print(f"goldens written to {goldens.GOLDEN_DIR}")
 
 
 if __name__ == "__main__":

@@ -29,11 +29,11 @@ def main():
     import jax.numpy as jnp
     from PIL import Image
 
-    from vokselis_tpu.core.camera import Camera, CameraUniform
-    from vokselis_tpu.media.png import write_png
-    from vokselis_tpu.models.trig import _V0, _V1, _V2
-    from vokselis_tpu.ops.present import present
-    from vokselis_tpu.ops.raster import rasterize_triangle
+    from vokselis.core.camera import Camera, CameraUniform
+    from vokselis.media.png import write_png
+    from vokselis.models.trig import _V0, _V1, _V2
+    from vokselis.ops.present import present
+    from vokselis.ops.raster import rasterize_triangle
 
     ref_path = "/root/reference/trig.png"
     ref = np.asarray(Image.open(ref_path).convert("RGB"), np.float32) / 255.0
@@ -60,7 +60,7 @@ def main():
     probe = np.asarray(render_one(u0.view_position, u0.proj_view,
                                   u0.inv_proj, jnp.float32(0.5)))
     del probe  # warm the jit only
-    from vokselis_tpu.core.colors import aces_film, linear_to_srgb_present
+    from vokselis.core.colors import aces_film, linear_to_srgb_present
 
     mapped = np.asarray(linear_to_srgb_present(aces_film(jnp.asarray(ramp))))
     t_best = float(ramp[int(np.abs(mapped - red_srgb).argmin())])
